@@ -16,7 +16,7 @@ a batch of one — there is exactly one extension engine.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -256,6 +256,24 @@ def affine_semiglobal(query: np.ndarray, ref: np.ndarray, sub: np.ndarray,
         np.unravel_index(np.argmax(H), H.shape)[0]), ops[::-1]
 
 
+def batch_align_scores_reference(queries, refs, qlens, rlens,
+                                 match=2, tpen=3, tvpen=3, open_p=5,
+                                 ext_p=2) -> np.ndarray:
+    """(R,) best semi-global affine scores of R (query, ref) code pairs:
+    the numpy gold of the device DP (``batch_extender.batched_ends``)."""
+    cfg = AlignerConfig(match_score=match, mm_transition_penalty=tpen,
+                        mm_transversion_penalty=tvpen,
+                        gap_opening_penalty=open_p,
+                        gap_extension_penalty=ext_p)
+    sub = cfg.score_matrix()
+    out = []
+    for i in range(len(queries)):
+        q = np.asarray(queries[i][:qlens[i]], np.int32)
+        r = np.asarray(refs[i][:rlens[i]], np.int32)
+        out.append(affine_semiglobal(q, r, sub, open_p, ext_p)[0])
+    return np.array(out)
+
+
 class Aligner:
     """Seed & extend against a DbgSuccinct (reference DBGAligner,
     dbg_aligner.hpp:60-215)."""
@@ -381,7 +399,6 @@ class Aligner:
         canonical graphs contain both orientations so forward search
         already covers them)."""
         # one extension engine: the single-read path IS a batch of one
-        # (VERDICT r2 item 4 — the round-1 host beam DP is gone)
         return self.align_batch(
             [sequence], both_strands=both_strands,
             num_alternative_paths=num_alternative_paths)[0]
@@ -399,11 +416,11 @@ class Aligner:
 
         ``with_cigar=False`` is the score-only fast path (query --align /
         server align: only the path spelling is consumed): alignment ends
-        come from the Pallas wavefront kernel on TPU with no (B, LR, LQ)
-        matrix transfer; the min_exact_match filter then uses the exact
-        lower bound score/match_score <= num_matches (every non-match op
-        scores <= 0), so it only ever keeps a subset of the CIGAR path's
-        results."""
+        come from the device full DP + argmax (``batched_ends``) with no
+        (B, LR, LQ) matrix transfer; the min_exact_match filter then uses
+        the exact lower bound score/match_score <= num_matches (every
+        non-match op scores <= 0), so it only ever keeps a subset of the
+        CIGAR path's results."""
         from .batch_extender import batched_cigars, beam_extend_batch
         orientations = [(False, list(seqs))]
         if both_strands:
@@ -548,7 +565,7 @@ class Aligner:
                                    cfg.mm_transversion_penalty,
                                    sub_tt=self._sub_tt)
         else:
-            # score-only: Pallas ends kernel, no matrices, no traceback
+            # score-only: device DP ends, no matrices, no traceback
             from .batch_extender import batched_ends
             fe = batched_ends(fq, fr, fql, frl, cfg.gap_opening_penalty,
                               cfg.gap_extension_penalty, cfg.match_score,
@@ -714,11 +731,19 @@ def _map_batch_nodes(g, seqs: Sequence[bytes]) -> List[np.ndarray]:
     """Map every read's k-mer windows to node ids in ONE device dispatch:
     reads are concatenated with INVALID separators (windows spanning a
     boundary are invalid by window_validity), mapped once, and sliced back
-    per read. Matches per-read g.map_to_nodes(s) exactly."""
+    per read. Each window maps to the node of its own orientation: on a
+    canonical DbgSuccinct that differs from g.map_to_nodes(s), which maps
+    to the node of the canonical form (the other strand for half the
+    windows); a CanonicalDbg wrapper already maps oriented."""
+    from ..graph.dbg_succinct import MODE_BASIC, MODE_CANONICAL, DbgSuccinct
     from ..kmer.alphabets import INVALID_CODE
     from ..kmer.extractor import encode_sequences
     import jax.numpy as jnp
     k = g.k
+    if isinstance(g, DbgSuccinct) and g.mode == MODE_CANONICAL:
+        # alignments are oriented paths: a canonical graph stores both
+        # orientations, so look each window up as it is
+        g = replace(g, mode=MODE_BASIC)
     codes = encode_sequences(seqs, g.alphabet)       # trailing sep per read
     n = len(codes)
     if n < k:

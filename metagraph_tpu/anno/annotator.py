@@ -5,7 +5,7 @@ Replaces the reference LabelEncoder
 the ColumnCompressed construction annotator
 (representation/column_compressed/annotate_column_compressed.hpp:24):
 labels are accumulated as (row, label) COO batches on the host and
-finalized into a sorted RowSparse device matrix in one sort — the TPU
+finalized into a sorted RowSparse device matrix in one sort — the device
 analog of flushing per-label build buffers into sparse bit vectors.
 """
 

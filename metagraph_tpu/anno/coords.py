@@ -153,7 +153,7 @@ class TupleRowDiff:
     def _reconstruct_rows(self, rows: np.ndarray):
         """{row: {col: sorted coord array}} for the requested rows.
 
-        Fully batched (VERDICT r2 item 5 — no per-row host walks): the
+        Fully batched (no per-row host walks): the
         closed form of the recurrence T(v) = symdiff(D(v), T(succ(v)) -
         SHIFT) is T(v0) = Δ_i (D(v_i) - i*SHIFT) over the anchor path
         v_0..v_m, so reconstruction is (1) one vectorized pointer walk

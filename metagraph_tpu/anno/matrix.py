@@ -1,6 +1,6 @@
 """Binary annotation matrices as sorted-COO device tensors.
 
-TPU-native replacement for the reference's BinaryMatrix hierarchy
+Device replacement for the reference's BinaryMatrix hierarchy
 (metagraph/src/annotation/binary_matrix/base/binary_matrix.hpp:16-50).
 The workhorse here is a single representation, ``RowSparse``: the set of
 (row, column) bits sorted by (row, column), as two aligned device arrays

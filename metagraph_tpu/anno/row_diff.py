@@ -7,7 +7,7 @@ annotation row is replaced by its XOR against its graph successor's row,
 except at *anchor* rows which store full rows; queries walk successor
 chains XOR-accumulating until an anchor.
 
-TPU formulation:
+Device formulation:
   * successor assignment + anchor placement: the same pointer-doubling
     machinery as unitig extraction (graph/traversal.py) computes each
     node's distance to its chain root in O(log N) gather rounds; anchors

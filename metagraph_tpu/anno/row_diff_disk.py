@@ -6,7 +6,7 @@ stages so annotations larger than RAM can be transformed
 and anchors, stream every source column against the graph, write diffed
 columns back to disk). The in-memory `build_row_diff`
 (anno/row_diff.py:477) collapses that to one pass; this module restores
-the bounded-memory discipline, TPU-repo style:
+the bounded-memory discipline:
 
   Stage 0  scan only the ``labels`` member of every input .annodbg.npz
            (npz members load lazily) to build the merged LabelEncoder —

@@ -718,7 +718,7 @@ def cmd_query(args):
             # (query.cpp:993-999; the --batch-align hull's role is
             # subsumed by the batched full-graph aligner, query.cpp:735)
             # score-only alignment: query consumes just the best path
-            # spelling, so skip CIGAR recovery (Pallas ends kernel on TPU)
+            # spelling, so skip CIGAR recovery
             all_res = aligner.align_batch([rec.seq for rec in batch],
                                           with_cigar=False)
             for rec, res in zip(batch, all_res):
@@ -749,8 +749,8 @@ def cmd_query(args):
                 idx += 1
                 n += 1
         else:
-            # non-simple modes run through the SAME batched executor
-            # (VERDICT r2 item 5): one device fetch per batch, host-only
+            # non-simple modes run through the SAME batched executor:
+            # one device fetch per batch, host-only
             # per-read formatting
             seqs_b = [r.seq for r in batch]
             if args.print_signature:
@@ -1615,7 +1615,7 @@ def cmd_transform_anno(args):
         out_mat = mat if isinstance(mat, RowSparse) else mat.to_row_sparse()
     elif target in ("bin_rel_wt", "bin_rel_wt_sdsl"):
         # binary-relation WT role: same query surface as the Multi-BRWT
-        # (VERDICT/COMPONENTS subsumption); accepted under the reference
+        # (COMPONENTS.md subsumption); accepted under the reference
         # names and stored as a BRWT
         from ..anno.brwt import build_brwt
         if not isinstance(mat, RowSparse):
@@ -1729,7 +1729,7 @@ _INERT_ATTRS = [(f.lstrip("-").replace("-", "_"), f)
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="metagraph",
-                                description="TPU-native MetaGraph")
+                                description="MetaGraph on JAX")
     sub = p.add_subparsers(dest="command", required=True)
 
     def common_out(sp):
@@ -2055,8 +2055,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mem-cap-gb", type=float, default=1.0,
                     help="spill buffer cap for --disk-swap conversions")
     sp.add_argument("--row-diff-stage", type=int, default=2,
-                    help="reference 3-stage compatibility: 0/1 are "
-                         "no-ops, 2 runs the whole conversion")
+                    help="reference 3-stage conversion: 0 accumulates "
+                         "row label counts, 1 row reduction stats, 2 "
+                         "runs the conversion")
     sp.add_argument("--rename-cols", default="",
                     help="file with '<old> <new>' label rename pairs")
     sp.add_argument("--dump-text-anno", action="store_true",
@@ -2113,15 +2114,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    # honor JAX_PLATFORMS even when a sitecustomize pre-initialized a
-    # different backend (worker subprocesses force CPU this way)
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        try:
-            import jax
-            jax.config.update("jax_platforms", plat)
-        except Exception:
-            pass
     args = build_parser().parse_args(argv)
     if getattr(args, "debug", False):
         args.verbose = True

@@ -1,6 +1,6 @@
 """Multi-lane packed big-integer tensors — the universal k-mer currency.
 
-TPU-native replacement for the reference's 64/128/256-bit packed k-mer
+Device-side replacement for the reference's 64/128/256-bit packed k-mer
 integers (reference: metagraph/src/kmer/kmer_boss.hpp:29, kmer.hpp:29).
 Instead of wide scalar integers manipulated one k-mer at a time, we hold a
 *batch* of N big integers as a lane-major ``(L, N) uint32`` tensor:
@@ -11,14 +11,14 @@ Instead of wide scalar integers manipulated one k-mer at a time, we hold a
     (colex + edge label) order — this replaces ips4o
     (reference: boss_chunk_construct.cpp:280-306);
   * every bit operation (shift by a whole number of characters, masks,
-    char extract) is a vectorized uint32 shift/mask over lanes, which maps
-    straight onto the TPU VPU with no scalar loops.
+    char extract) is a vectorized uint32 shift/mask over lanes, with no
+    scalar loops.
 
 Characters are stored in *nibble-aligned* fields: ``bits_per_char`` must
 divide 32 (we use 4 for DNA incl. the ``$`` sentinel, 8 for protein), so a
 character never straddles a lane boundary.  This costs up to 1 bit/char of
-HBM vs the reference's 3-bit sentinel packing but removes all funnel-shift
-straddle logic from the hot path — a deliberate TPU-first trade.
+device memory vs the reference's 3-bit sentinel packing but removes all
+funnel-shift straddle logic from the hot path.
 
 All functions are pure, shape-polymorphic in N, static in L/B/K, and safe
 under ``jax.jit``/``vmap``/``shard_map``.
@@ -212,6 +212,25 @@ def sort(x: jax.Array, *extras: jax.Array, stable: bool = True
     return jnp.stack(res[:L]), tuple(res[L:])
 
 
+def merge_sorted(a: jax.Array, b: jax.Array,
+                 a_extras: Sequence[jax.Array] = (),
+                 b_extras: Sequence[jax.Array] = (),
+                 ) -> Tuple[jax.Array, Tuple[jax.Array, ...]]:
+    """Merge two sorted (+PAD-tail) lane arrays with their payloads.
+
+    Returns (lanes (L, Na+Nb), extras): sorted ascending, PADs at the
+    tail, equal keys adjacent. Payload i of A pairs with payload i of B.
+    Written as concatenate + one sort, which XLA lowers itself; the
+    reference does this as a linear iterator merge
+    (boss_chunk_construct.cpp:233-306).
+    """
+    assert len(a_extras) == len(b_extras)
+    lanes = jnp.concatenate([a, b], axis=1)
+    extras = tuple(jnp.concatenate([ea, eb])
+                   for ea, eb in zip(a_extras, b_extras))
+    return sort(lanes, *extras)
+
+
 def searchsorted(keys: jax.Array, queries: jax.Array, side: str = "left",
                  lo0=None, hi0=None, steps: Optional[int] = None) -> jax.Array:
     """Vectorized binary search of ``queries`` (L, Q) in sorted ``keys`` (L, N).
@@ -287,10 +306,10 @@ def isin_sorted(keys: jax.Array, queries: jax.Array) -> jax.Array:
 def isin_merge(keys: jax.Array, queries: jax.Array) -> jax.Array:
     """(Q,) bool set-membership via one sort instead of binary search.
 
-    On TPU a lexicographic sort of n+q elements costs far less than the
-    log2(n) gather rounds of a binary search when q ~ n (gathers are the
-    expensive primitive), so bulk membership tests in the construction
-    pipeline use this merge formulation: tag keys/queries, co-sort, mark
+    Bulk membership tests in the construction pipeline (q ~ n) use this
+    merge formulation in place of log2(n) gather rounds of a binary
+    search (a choice made on a TPU, not yet measured on the H100): tag
+    keys/queries, co-sort, mark
     equal-value runs containing a key with one segment-max + one gather,
     scatter results back through the co-sorted query index.
     ``keys`` need not be pre-sorted here.
@@ -300,8 +319,10 @@ def isin_merge(keys: jax.Array, queries: jax.Array) -> jax.Array:
     both = jnp.concatenate([keys, queries], axis=1)
     is_query = jnp.concatenate([jnp.zeros((n,), jnp.int32),
                                 jnp.ones((q,), jnp.int32)])
-    orig = jnp.concatenate([jnp.zeros((n,), jnp.int32),
-                            jnp.arange(q, dtype=jnp.int32)])
+    # a bare iota: keys then queries in input order. (zeros ++ iota is a
+    # pad of a constant, which XLA folds into an (n+q)-element literal
+    # at compile time.)
+    orig = jnp.arange(n + q, dtype=jnp.int32)
     s, (is_q_s, orig_s) = sort(both, is_query, orig)
     run_first = neighbor_ne(s)
     # within an equal-value run keys sort before queries (stable sort,
@@ -375,8 +396,8 @@ def compact(x: jax.Array, keep: jax.Array, capacity: int,
     Returns (lanes (L, capacity), count, extras...). Entries beyond capacity
     are dropped (callers must size capacity; the TRUE count is returned so
     they can detect overflow). Implemented as a stable one-key sort on
-    ``not keep`` — on TPU a sort is several times cheaper than the
-    equivalent scatter, and this runs in every pipeline stage.
+    ``not keep`` rather than a prefix sum + scatter (a choice made on a
+    TPU, not yet measured on the H100); this runs in every pipeline stage.
     """
     L, n = x.shape
     count = jnp.sum(keep.astype(jnp.int32))

@@ -1,9 +1,8 @@
 """Blocked rank/select over device tensors.
 
-TPU-native replacement for the reference's succinct bit-vector / wavelet
+Device replacement for the reference's succinct bit-vector / wavelet
 tree hierarchy (metagraph/src/common/vectors/bit_vector.hpp:12,
-wavelet_tree.hpp:13), now in the blocked layout the docstring of round 1
-promised:
+wavelet_tree.hpp:13), in a blocked layout:
 
   * ``BitRank``: bits packed into uint32 words + one int32 exclusive
     rank per word — 0.25 B/position (vs 4 B for the round-1 dense
@@ -155,10 +154,10 @@ def _match_bits(words: jax.Array, c: jax.Array) -> jax.Array:
 class SymbolRank:
     """Per-symbol blocked rank/select over a small-alphabet sequence
     (wavelet-tree replacement for the BOSS W array). The sequence lives
-    byte-packed in uint32 words (byte b of word w = char 4w+b): TPU
-    gathers of (Q, 32) uint32 block rows run ~10x faster than the
-    (Q, 128) int8 rows of the round-1 layout, and the in-block counts
-    become SWAR popcounts."""
+    byte-packed in uint32 words (byte b of word w = char 4w+b): a gather
+    fetches (Q, 32) uint32 block rows instead of (Q, 128) int8 rows, and
+    the in-block counts become SWAR popcounts. The layout was chosen on
+    a TPU and is not yet measured on the H100."""
     seq_words: jax.Array  # (nb * _WPB,) uint32, pad char = sigma
     blocks: jax.Array     # (nb + 1, sigma) int32 exclusive counts per block
     sigma: int
@@ -206,7 +205,8 @@ class SymbolRank:
 
     def _rows(self, blk: jax.Array) -> jax.Array:
         """(Q, _WPB) uint32 block contents — a whole-row 1D gather of the
-        (nb, _WPB) view, ~2.7x faster on TPU than a 2D index grid."""
+        (nb, _WPB) view (chosen over a 2D index grid on a TPU; not yet
+        measured on the H100)."""
         return self.seq_words.reshape(-1, _WPB)[blk]
 
     def rank(self, c: jax.Array, i: jax.Array) -> jax.Array:

@@ -412,7 +412,7 @@ class BatchQuery:
     def _top_labels_batch_values(self, seqs, num_top_labels,
                                  presence_ratio):
         """--query-counts batch path: one batched value fetch for the
-        whole read batch (VERDICT r2 item 5 — no per-read fallback)."""
+        whole read batch (no per-read fallback)."""
         adbg = self.adbg
         C = adbg.num_labels
         enc = adbg.annotation.encoder

@@ -3,7 +3,7 @@
 Re-implements the reference's annotated_graph_algorithm
 (metagraph/src/graph/annotated_graph_algorithm.hpp:28-74): build a node
 mask keeping unitigs (or nodes) whose annotation matches a foreground /
-background label contrast, then assemble the masked graph. On TPU the
+background label contrast, then assemble the masked graph. Here the
 per-node label counts for the in/out/other groups are three masked
 segment-sums over the annotation matrix — one pass, no per-node label
 set materialization.

@@ -1,6 +1,6 @@
 """The BOSS table as dense device tensors with batched navigation.
 
-TPU-native re-design of the reference BOSS class
+Device re-design of the reference BOSS class
 (metagraph/src/graph/representation/succinct/boss.hpp:27,
 boss.cpp:567-596). The representation keeps the same logical arrays —
 
@@ -66,8 +66,7 @@ class Boss:
         last = last.astype(bool)
         F = F.astype(jnp.int32)
         # blocked rank structures (0.25 B/pos for last, ~1.3 B/pos for W),
-        # built in ONE fused dispatch (host round trips dominate on the
-        # remote-dispatch runtime)
+        # built in ONE fused dispatch (no host round trip per structure)
         n = int(last.shape[0])
         sigma = 2 * alph_size
         (lw, lbr, ltot, seq_words, blocks, NF) = _finalize_ranks(
@@ -96,7 +95,7 @@ class Boss:
         """Finalize straight from the construction finish-stage buffers:
         slice-to-size, sentinel row, blocked ranks and NF in ONE dispatch
         with NO host sync (vs ~6 op-by-op dispatches + 1 sync through
-        from_arrays — a round trip costs ~30 ms on the remote runtime).
+        from_arrays).
         ``lut``/``max_bucket`` come precomputed from the finish stage
         (max_bucket rides the stats sync the builder already pays)."""
         sigma = 2 * alph_size

@@ -249,10 +249,7 @@ class DbgSuccinct:
             # one in an all-miss read): resolve ALL of them with ONE
             # batched k-step tightening search.  The previous per-read
             # host loop re-dispatched map_codes_to_nodes once per
-            # straggler read; on the remote runtime each dispatch costs
-            # ~10 ms of latency, which made miss-heavy batches ~100x
-            # slower than this single fused call (round-4 scale proof:
-            # 151 reads/s).
+            # straggler read, paying one dispatch latency per read.
             known_np = np.asarray(known)
             nw_arr = np.array([max(0, len(r) - k + 1) for r in reads])
             col = np.arange(known_np.shape[1])

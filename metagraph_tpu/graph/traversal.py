@@ -2,7 +2,7 @@
 
 The reference extracts unitigs with a sequential DFS over the BOSS table
 (metagraph/src/graph/representation/succinct/boss.cpp:2042+,
-sequence_graph.cpp call_unitigs). That is inherently serial; the TPU
+sequence_graph.cpp call_unitigs). That is inherently serial; the device
 formulation exploits that unitigs are *chains* of the unique-successor
 function:
 

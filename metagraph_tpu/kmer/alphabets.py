@@ -6,8 +6,8 @@ table, converted between via ``kmer::transform``), we use the sentinel
 alphabet everywhere: codes are ``$``=0, then the real characters from 1.
 This removes the lift/transform pass from the construction pipeline
 (reference: kmer_transform.hpp:39) at the cost of slightly wider sort keys
-— a good trade on TPU where the sort is a dense bandwidth-bound kernel and
-extra passes hurt more than extra bits.
+— the sort is a dense bandwidth-bound pass, where an extra pass costs
+more than extra bits.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Sequence → packed k-mer extraction.
 
-TPU-native replacement for KmerExtractorBOSS::sequence_to_kmers
+Device replacement for KmerExtractorBOSS::sequence_to_kmers
 (reference: metagraph/src/kmer/kmer_extractor.hpp:62-98). The reference
 walks each sequence with a rolling scalar update; we instead treat a whole
 *batch* of concatenated sequences as one uint8 code tensor and compute all
@@ -72,9 +72,9 @@ def extract_packed_kmers(
     num_windows = n - K + 1
     assert num_windows >= 0, "input shorter than k"
     ok = window_validity(codes, K)
-    # windows are contiguous slices, NOT gathers (gathers are ~100x more
-    # expensive on TPU); lanes accumulate per slot with no (K, N) field
-    # stack — see packing.pack_windows
+    # windows are contiguous slices, NOT gathers (a gather per window
+    # char would multiply the memory traffic); lanes accumulate per slot
+    # with no (K, N) field stack — see packing.pack_windows
     lanes = packing.pack_windows(codes, K, B)
     if suffix:
         s = len(suffix)
@@ -84,6 +84,5 @@ def extract_packed_kmers(
             field = jax.lax.slice(codes, (off,), (off + num_windows,)) \
                 .astype(jnp.uint32)
             ok = ok & (field == np.uint32(c))
-    from ..common import merge as pmerge
-    lanes, count, _ = pmerge.partition_compact(lanes, ok, num_windows)
+    lanes, count, _ = packed.compact(lanes, ok, num_windows)
     return lanes, count

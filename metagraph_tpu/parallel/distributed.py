@@ -1,6 +1,6 @@
 """Multi-chip distribution: mesh setup + sharded build/query steps.
 
-The TPU-native replacement for the reference's process-level sharding
+The device-mesh replacement for the reference's process-level sharding
 (SURVEY §2.9): the k-mer space partition that the reference implements as
 Σ^s separate passes + chunk files (cli/build.cpp:103-155) becomes a
 device-mesh axis with an ``all_to_all`` exchange (MoE-style bucket
@@ -8,8 +8,8 @@ routing), and per-label annotation parallelism (annotate.cpp:469) becomes
 column sharding with an ``all_gather`` of per-shard label counts.
 
 All steps are written with ``shard_map`` over an explicit Mesh so the
-same code runs on a real TPU slice over ICI or on the virtual CPU mesh
-used in tests and the driver's multichip dry-run.
+same code runs on the GPUs of one host (NCCL collectives over NVLink) or
+on the virtual CPU mesh used in tests and the multichip dry-run.
 """
 
 from __future__ import annotations
@@ -21,14 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax import shard_map as _shard_map
-import functools as _functools
-# check_vma=False: the step bodies call the Pallas merge/partition
-# kernels, whose pallas_call outputs carry no varying-mesh-axes spec —
-# shard_map's VMA inference rejects them on a real TPU mesh (the CPU
-# fallback path hides this). Replication correctness is asserted by the
-# bit-identity tests instead.
-shard_map = _functools.partial(_shard_map, check_vma=False)
+from jax import shard_map
 
 from ..common import packed
 from ..kmer import packing
@@ -350,7 +343,7 @@ def build_distributed_full_step(mesh: Mesh, K: int, B: int = 4,
                           for c in range(alph_size)])
         return kept, n_kept, W, last, hist, weights
 
-    def step(real, counts, n_arr, splitters):
+    def finish_shard(real, counts, n_arr, splitters):
         _route_splitters.clear()
         _route_splitters.append(splitters)
         n_real = n_arr[0]
@@ -432,27 +425,33 @@ def build_distributed_full_step(mesh: Mesh, K: int, B: int = 4,
         src, _ = packed.sort(src_flat)
         n_src = jnp.sum(snp.astype(jnp.int32))
         # 4) dummy levels 2..K-1 with per-level routing
+        #    (a loop, not unrolled: one level body in the program instead
+        #    of K-2 copies keeps the step's compile time flat in K)
         lev_cap = src.shape[1]
         n_levels = max(K - 2, 0)
-        levels = packed.full_pad(max(n_levels, 1) * lev_cap, L)
-        cur, n_cur = src, n_src
-        total_levels = jnp.int32(0)
-        for li in range(n_levels):
+
+        def level(li, carry):
+            levels, cur, n_cur, total_levels, overflow = carry
             v = packed.valid_mask(lev_cap, n_cur)
             nf = packed.neighbor_ne(packing.node_key(cur, B)) & v
             nxt = packing.to_prev(cur, K, B, 0)
             nxt_flat, _, ov = route(nxt, nf)
-            overflow = jnp.maximum(overflow, ov)
             nnp_ = ~jnp.all(nxt_flat == packed.PAD_LANE, axis=0)
             nxt_s, _ = packed.sort(nxt_flat)
             n_nxt = jnp.sum(nnp_.astype(jnp.int32))
-            take = jnp.where(packed.valid_mask(nxt_s.shape[1], n_nxt),
-                             True, False)
-            lvl, _, _ = packed.compact(nxt_s, take, lev_cap)
+            lvl, _, _ = packed.compact(
+                nxt_s, packed.valid_mask(nxt_s.shape[1], n_nxt), lev_cap)
             levels = jax.lax.dynamic_update_slice(levels, lvl,
                                                   (0, li * lev_cap))
-            cur, n_cur = lvl, jnp.minimum(n_nxt, lev_cap)
-            total_levels = total_levels + n_nxt
+            return (levels, lvl, jnp.minimum(n_nxt, lev_cap),
+                    total_levels + n_nxt, jnp.maximum(overflow, ov))
+
+        # the fresh buffers become per-shard values inside the loop
+        levels0, total0 = jax.lax.pcast(
+            (packed.full_pad(max(n_levels, 1) * lev_cap, L), jnp.int32(0)),
+            (axis,), to="varying")
+        levels, _, _, total_levels, overflow = jax.lax.fori_loop(
+            0, n_levels, level, (levels0, src, n_src, total0, overflow))
         # 5) local merge + emit (shard 0 adds the $^K sentinel row)
         zero_row = packed.zeros(1, L)
         zero_valid = (my == 0)
@@ -478,7 +477,7 @@ def build_distributed_full_step(mesh: Mesh, K: int, B: int = 4,
                 n_kept[None])
 
     sharded = shard_map(
-        step, mesh=mesh,
+        finish_shard, mesh=mesh,
         in_specs=(P(None, axis), P(axis), P(axis), P()),
         out_specs=(P(None, axis), P(axis), P(axis), P(axis), P(),
                    P(axis), P(axis)),
@@ -492,7 +491,7 @@ def build_boss_distributed_full(seqs, k: int, mesh: Mesh,
     """End-to-end multi-device build with the finish stage sharded too:
     collection routes by sample-based splitters; rc closure, dummy
     generation, levels and the W/last/F emit all run per shard with
-    all_to_all joins (VERDICT r1 item 5). Bit-identical to the
+    all_to_all joins. Bit-identical to the
     single-device build after shard concatenation."""
     from ..kmer.alphabets import DNA, INVALID_CODE
     from ..graph.boss_construct import _bucket
@@ -594,11 +593,11 @@ def route_histogram_step(mesh: Mesh, K: int, B: int,
                          complement, axis: str = "x"):
     """Pre-pass: per-(device, destination) k-mer counts so the driver can
     size all_to_all buffers from the measured histogram instead of the
-    worst case (VERDICT r1 weak 6)."""
+    worst case."""
     n_dev = mesh.devices.size
     cap = codes_per_device - K + 1
 
-    def step(codes, splitters):
+    def route_histogram(codes, splitters):
         lanes, count = extract_packed_kmers(codes, K, B)
         if canonical:
             rc = packing.reverse_complement(lanes, K, B, complement)
@@ -612,8 +611,8 @@ def route_histogram_step(mesh: Mesh, K: int, B: int,
             jnp.where(valid, owner, n_dev), num_segments=n_dev + 1)
         return hist[:n_dev]
 
-    sharded = shard_map(step, mesh=mesh, in_specs=(P(axis), P()),
-                        out_specs=P(axis))
+    sharded = shard_map(route_histogram, mesh=mesh,
+                        in_specs=(P(axis), P()), out_specs=P(axis))
     return jax.jit(sharded)
 
 
@@ -629,7 +628,7 @@ def _collect_with_splitters(mesh: Mesh, K: int, B: int,
     cap = codes_per_device - K + 1
     per_dest = per_dest or cap
 
-    def step(codes, splitters):
+    def collect_routed(codes, splitters):
         lanes, count = extract_packed_kmers(codes, K, B)
         if canonical:
             rc = packing.reverse_complement(lanes, K, B, complement)
@@ -663,7 +662,7 @@ def _collect_with_splitters(mesh: Mesh, K: int, B: int,
         return ulanes, ucounts.astype(jnp.int32), ucount[None]
 
     sharded = shard_map(
-        step, mesh=mesh,
+        collect_routed, mesh=mesh,
         in_specs=(P(axis), P()),
         out_specs=(P(None, axis), P(axis), P(axis)),
         )

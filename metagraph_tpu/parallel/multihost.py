@@ -1,13 +1,13 @@
 """Multi-host runtime entry (SURVEY §2.9 P7).
 
 The reference distributes across machines with a cloud work queue +
-files (scripts/cloud/server.py); the TPU-native runtime has two tiers:
+files (scripts/cloud/server.py); this runtime has two tiers:
 
-  * ``initialize()`` — `jax.distributed.initialize` for pod slices:
-    every host joins one JAX runtime, `jax.devices()` spans all chips,
-    and the shard_map pipelines in parallel/distributed.py run
-    unchanged over the global mesh (collectives ride ICI within a
-    slice and DCN across slices).
+  * ``initialize()`` — `jax.distributed.initialize` for multi-host
+    clusters: every host joins one JAX runtime, `jax.devices()` spans
+    all cards, and the shard_map pipelines in parallel/distributed.py
+    run unchanged over the global mesh (collectives ride NVLink within
+    a host and the network across hosts).
   * the coarse-grained work queue (parallel/coordinator.py + the
     `metagraph coordinator` / `metagraph worker` CLI) for clusters
     without a shared JAX runtime — per-suffix chunk builds fan out to
@@ -32,7 +32,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Join the multi-host JAX runtime. Arguments default to the standard
     environment variables (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID / cloud TPU metadata). Returns True when a multi-host
+    JAX_PROCESS_ID). Returns True when a multi-host
     runtime was initialized, False when running single-process."""
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")

@@ -3,7 +3,7 @@
 The reference bounds build memory by partitioning the k-mer space on a
 node-suffix of length s and running Σ^s passes, each emitting a chunk
 that is later concatenated (cli/build.cpp:103-155,359-456;
-kmer_extractor.hpp:89). The same partition is the TPU *distribution* axis
+kmer_extractor.hpp:89). The same partition is the device *distribution* axis
 (SURVEY §2.9 P4): suffix buckets are contiguous ranges of the BOSS sort
 order (the suffix chars are the most significant comparison fields), so
 

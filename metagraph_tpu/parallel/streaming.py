@@ -3,7 +3,7 @@
 The reference bounds memory with SortedSetDisk: fill a RAM buffer, sort,
 spill Elias-Fano chunks to disk, k-way-merge the chunks
 (metagraph/src/common/sorted_sets/sorted_set_disk_base.hpp:34,
-elias_fano_merger.hpp:188). The TPU analog uses host RAM as the spill
+elias_fano_merger.hpp:188). The device analog uses host RAM as the spill
 tier (and the OS page cache / files beyond that):
 
   input chunks -> device extract+sort+unique -> host chunk arrays ->

@@ -1,9 +1,9 @@
-"""Scale proof: out-of-core build of a >=500M-edge graph on ONE chip.
+"""Scale proof: out-of-core build of a >=500M-edge graph on ONE card.
 
 Random DNA (worst case: no duplicate collapse, ~n distinct k-mers),
-k=20 — BASELINE.md measurement plan item 'prove scale' / VERDICT r2
-item 3. Reports wall time, peak RSS, edges, device index bytes/edge
-(small state), and batched small-state query throughput.
+k=20 — BASELINE.md measurement plan item 'prove scale'. Reports wall
+time, peak RSS, edges, device index bytes/edge (small state), and
+batched small-state query throughput.
 
 Usage: python scripts/scale_proof.py [n_chars_log2=29] [n_shards=16]
 """

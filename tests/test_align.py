@@ -7,6 +7,7 @@ from conftest import random_dna
 from metagraph_tpu.align.aligner import (Aligner, AlignerConfig,
                                          affine_semiglobal, _revcomp)
 from metagraph_tpu.graph.boss_construct import build_boss
+from metagraph_tpu.graph.canonical import CanonicalDbg
 from metagraph_tpu.graph.dbg_succinct import DbgSuccinct
 from metagraph_tpu.kmer.alphabets import DNA
 
@@ -38,6 +39,25 @@ def test_reverse_complement_read(ref_graph):
     assert aln.orientation
     assert aln.score == 2 * len(read)
     assert aln.sequence == ref[100:200]
+
+
+@pytest.mark.parametrize("graph_mode", ["canonical", "primary"])
+@pytest.mark.parametrize("strand", ["forward", "reverse"])
+def test_canonical_graph_spells_the_read(strand, graph_mode):
+    """On a canonical graph (both orientations), and on a primary graph
+    seen through CanonicalDbg as the CLI loads it, the reported path is the
+    read's own strand, not the canonical form of each k-mer."""
+    rng = np.random.default_rng(11)
+    ref = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=400))
+    g = DbgSuccinct.from_boss(build_boss([ref], 15, mode=graph_mode),
+                              DNA, graph_mode)
+    if graph_mode == "primary":
+        g = CanonicalDbg(base=g)
+    read = ref[100:200] if strand == "forward" else _revcomp(ref[100:200])
+    aln = Aligner(g).align(read)[0]
+    assert aln.score == 2 * len(read)
+    assert aln.cigar == f"{len(read)}="
+    assert aln.sequence == read
 
 
 def test_single_mismatch(ref_graph):

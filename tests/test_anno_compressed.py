@@ -195,7 +195,7 @@ def test_int_row_diff_matches_source(rng):
 
 def test_rainbow_brwt_and_vectorized_unique(rng):
     """Rainbow<BRWT> distinct store + vectorized row dedup
-    (rainbowfish/rainbow.hpp:15; VERDICT r1 missing 8 / weak 8)."""
+    (rainbowfish/rainbow.hpp:15)."""
     from metagraph_tpu.anno.matrix import RowSparse
     from metagraph_tpu.anno.unique_row import UniqueRow
 

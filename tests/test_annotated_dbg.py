@@ -222,7 +222,7 @@ def test_batch_query_matches_single(rng):
 
 def test_batch_query_modes_match_single(rng):
     """The batched signature / counts / quantiles / coordinate modes
-    must agree with the per-read engine exactly (VERDICT r2 item 5)."""
+    must agree with the per-read engine exactly."""
     from metagraph_tpu.engine.annotated_dbg import BatchQuery
     k = 7
     seqs = [random_dna(rng, 180) for _ in range(4)]

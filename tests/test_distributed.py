@@ -61,7 +61,7 @@ def test_distributed_query(rng):
 
 def test_streaming_build_equals_plain(rng):
     """Host-spill collection (bounded device window) must produce the
-    same graph as the in-HBM build."""
+    same graph as the in-memory build."""
     from metagraph_tpu.graph.boss_construct import build_boss
     from metagraph_tpu.parallel.streaming import build_boss_streaming
     seqs = [random_dna(rng, 700) for _ in range(4)]
@@ -113,7 +113,7 @@ def test_distributed_build_canonical(rng):
 def test_full_sharded_finish_bit_identity(rng):
     """The fully sharded build (splitter routing + per-shard rc closure,
     dummy joins, levels and emit) is bit-identical to the single-device
-    build on the 8-device mesh, both modes (VERDICT r1 item 5)."""
+    build on the 8-device mesh, both modes."""
     from metagraph_tpu.parallel.distributed import (
         build_boss_distributed_full, make_mesh)
     from metagraph_tpu.graph.boss_construct import build_boss
@@ -133,7 +133,7 @@ def test_full_sharded_finish_bit_identity(rng):
 
 def test_disk_swap_bit_identity(tmp_path, rng):
     """--disk-swap tier: spilled memmap runs + cascaded block merges
-    produce the same build as in-RAM (VERDICT r1 item 6)."""
+    produce the same build as in-RAM."""
     from metagraph_tpu.parallel.streaming import (build_boss_streaming,
                                                   collect_kmers_streaming)
     from metagraph_tpu.graph.boss_construct import build_boss
@@ -155,7 +155,7 @@ def test_disk_swap_bit_identity(tmp_path, rng):
 
 def test_spill_pack_roundtrip_and_bytes(rng):
     """Compact spill form: order-preserving, reversible, ~2.4x smaller
-    for DNA (VERDICT r2 item 8; reference EF spill elias_fano.hpp:165)."""
+    for DNA (reference EF spill elias_fano.hpp:165)."""
     import jax.numpy as jnp
     import numpy as np
     from metagraph_tpu.kmer import packing
